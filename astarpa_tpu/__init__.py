@@ -1,8 +1,8 @@
-"""astarpa_tpu — a TPU-native exact pairwise aligner.
+"""astarpa_tpu — an exact pairwise aligner with a batched GPU path.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 A*PA / A*PA2 (`RagnarGrootKoerkamp/astar-pairwise-aligner`): Myers' bitpacked
-edit-distance DP and block band-doubling run as batched TPU kernels, guided
+edit-distance DP and block band-doubling run as batched device kernels, guided
 by the seed / gap-chaining seed heuristic, with exact traceback to CIGARs.
 
 Public API (mirroring the reference's top-level functions,
@@ -12,9 +12,9 @@ Public API (mirroring the reference's top-level functions,
   single-pair alignment returning ``(cost, Cigar)``.
 - :func:`astarpa` — the default full-strength entry point (block DP with
   GCSH; the A* state-space search of the reference is re-expressed as the
-  equivalent band-doubling block DP, which is the TPU-shaped formulation).
+  equivalent band-doubling block DP, which is the device-shaped formulation).
 - :class:`BatchAligner` — the batch/streaming device API (the performance
-  product: many pairs aligned data-parallel on TPU).
+  product: many pairs aligned data-parallel on the device).
 """
 
 from .types import Cigar, CigarElem, CigarOp, Pos

@@ -23,9 +23,9 @@ from ..ops.bitpack import W, ONES
 from ..ops.block_kernel import BlockKernel
 
 #: Debug self-check of incremental doubling (`blocks.rs:473-543`): set
-#: ASTARPA_TPU_DEBUG_ID=1 to recompute every block without ID and assert
+#: ASTARPA_DEBUG_ID=1 to recompute every block without ID and assert
 #: bit-equality.  Enabled by the test suite.
-_DEBUG_ID = os.environ.get("ASTARPA_TPU_DEBUG_ID", "") == "1"
+_DEBUG_ID = os.environ.get("ASTARPA_DEBUG_ID", "") == "1"
 
 
 def round_out(j_range: tuple[int, int]) -> tuple[int, int]:

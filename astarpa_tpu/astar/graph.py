@@ -1,7 +1,7 @@
 """The implicit unit-cost edit graph and diagonal-transition coordinates.
 
 Host-side runtime component (the A* state space is pointer-chasing and
-inherently sequential; the TPU-shaped reformulation of the same alignment
+inherently sequential; the device-shaped reformulation of the same alignment
 problem is the block aligner in :mod:`astarpa_tpu.aligners`).  Semantics
 mirror `astarpa/src/alignment_graph.rs:6-184`.
 """

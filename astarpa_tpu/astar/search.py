@@ -10,7 +10,7 @@ queue shifts, and traceback via parent scanning.
 
 This is deliberately a *runtime* component, not a kernel: the A* loop is
 data-dependent pointer chasing, which is the part of the reference that does
-not map to TPUs.  The TPU-shaped equivalent of A*PA is the block
+not map to batched device kernels.  Their equivalent of A*PA is the block
 band-doubling aligner (:mod:`astarpa_tpu.aligners.astarpa2`) which computes
 the same exact answer; this module exists for full API/behavior parity and
 as the differential-testing anchor.  A C++ native version of this loop lives

@@ -25,7 +25,7 @@ from .pairs_io import nanosim_to_seq, read_pairs, txt_to_seq
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="astarpa-tpu", description="TPU-native exact global pairwise aligner"
+        prog="astarpa", description="Exact global pairwise aligner"
     )
     sub = p.add_subparsers(dest="cmd")
 
@@ -144,7 +144,9 @@ def main(argv=None) -> int:
     try:
         if args.aligner == "batch":
             from .parallel.runner import BatchAligner
+            from .utils.device import enable_compile_cache
 
+            enable_compile_cache()
             ba = BatchAligner(band_words=args.band_words)
             if args.no_cigar:
                 costs, bstats = ba.cost_with_stats(pairs)

@@ -2,7 +2,7 @@
 
 Packing: ``(c >> 1) & 3`` => A=0, C=1, T=2, G=3; the first character of a
 q-gram sits in the high-order bits (`qgrams.rs:34-42`).  All iterators are
-vectorized NumPy (this is the per-host k-mer table build of the TPU design).
+vectorized NumPy (this is the per-host k-mer table build of the batch design).
 """
 
 from __future__ import annotations

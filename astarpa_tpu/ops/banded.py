@@ -1,6 +1,6 @@
 """Banded batched Myers DP: a sliding word-window along the bucket diagonal.
 
-The TPU-shaped equivalent of the reference's band doubling
+The batched equivalent of the reference's band doubling
 (`astarpa2/src/lib.rs:122-175`, `band.rs:100-141`): instead of growing a
 per-pair data-dependent band (dynamic shapes), a whole *bucket* of
 similarly-sized pairs is aligned with one static band of ``band_words``
@@ -21,14 +21,13 @@ window's top row, absorbed word-by-word as the window slides), and the
 captured result at the pair's final column (pairs of different lengths
 finish at different columns under per-pair activity masks).
 
-The whole update is elementwise over a ``(band_words, B)`` tile, so the same
-body runs as the jnp reference (tested against the NumPy oracle) and as the
-Pallas kernel body (:mod:`astarpa_tpu.ops.pallas_banded`).
+These jnp functions are the reference semantics of the device DP: they
+run as the CPU backend's kernels, and the CUDA kernel
+(:mod:`astarpa_tpu.ops.cuda_banded`) must match them bit for bit.
 """
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +37,8 @@ from .bitpack import W, n_words
 
 U32 = jnp.uint32
 _ONES = 0xFFFFFFFF
+#: Result sentinel of a pair whose window lost its corner row.
+INF32 = 1 << 30
 
 
 def _popcount(x):
@@ -74,7 +75,7 @@ def shift_at_array(n_max: int, s_words: int, band_words: int,
                    diag: tuple[int, int] | None = None) -> np.ndarray:
     """Host-precomputed schedule: shift_at[i] = 1 iff the window slides one
     word down before processing column i.  Shared by the jnp reference and
-    the Pallas kernel so both are bit-identical.
+    the CUDA kernel so both are bit-identical.
 
     diag: the TRUE bucket diagonal ``(n_top, m_top)`` the window centers
     should track; defaults to the padded ``(n_max, s_words*W)``.  Passing
@@ -99,68 +100,68 @@ def shift_at_array(n_max: int, s_words: int, band_words: int,
     return shift
 
 
-def banded_cost_block(a0, a1, pb0, pb1, n, m, band_words: int,
-                      diag: tuple | None = None):
-    """Banded edit distances (upper bounds) for one shape bucket.
+def _myers_word(eqw, vpw, vmw, hp0, hm0):
+    """One Myers uint32 word step; hp0/hm0 are the 1-bit carries in."""
+    vx = eqw | vmw
+    eq2 = eqw | hm0
+    hx = (((eq2 & vpw) + vpw) ^ vpw) | eq2
+    hp = vmw | ~(hx | vpw)
+    hm = vpw & hx
+    hpw = hp >> (W - 1)
+    hmw = hm >> (W - 1)
+    hp = (hp << 1) | hp0
+    hm = (hm << 1) | hm0
+    return hm | ~(vx | hp), hp & vx, hpw, hmw
 
-    Args:
-      a0, a1: (n_max, B) uint32 exploded a-char planes.
-      pb0, pb1: (S, B) uint32 packed negated b profiles (padded rows read as
-        char 'G'; harmless — see ops.bitpack).
-      n, m: (B,) int32 true lengths.
-      band_words: static window height in uint32 words.
 
-    Returns (B,) int32 banded distances; exact where
-    ``cost <= band_threshold(...)`` (checked by the caller).
+def _column_body(a0, a1, pb0, pb1, n, m, SW: int, sched, per_pair: bool):
+    """One banded column as a loop body over the state
+    ``(vp, vm, win0, win1, top_val, lo, result, top_rows)``.
+
+    Shared schedule: ``sched`` is the (n_max,) bucket schedule and ``lo``
+    a scalar.  Per-pair: ``sched`` is (n_max, B) and ``lo`` is (B,).  In
+    both, the window first slides (absorbing its top word into
+    ``top_val``), then one banded Myers column runs for the pairs still
+    active, and a pair's result is captured at its final column.
     """
-    n_max, B = a0.shape
     S = pb0.shape[0]
-    SW = min(band_words, S)
-    n = n.astype(jnp.int32)
-    m = m.astype(jnp.int32)
-    shift_at = jnp.asarray(shift_at_array(n_max, S, SW, diag))
+    B = a0.shape[1]
 
     def body(i, state):
         vp, vm, win0, win1, top_val, lo, result, top_rows = state
+        if per_pair:
+            shift = sched[i]
+            do_shift = shift > 0
+            lo_new = lo + shift
+            ent = jnp.minimum(lo_new + SW - 1, S - 1)[None, :]
+            nxt0 = jnp.take_along_axis(pb0, ent, axis=0)
+            nxt1 = jnp.take_along_axis(pb1, ent, axis=0)
+            lo = lo_new
+        else:
+            do_shift = sched[i] > 0
+            lo_new = lo + 1
+            nxt0 = jax.lax.dynamic_slice_in_dim(pb0, lo_new + SW - 1, 1, axis=0)
+            nxt1 = jax.lax.dynamic_slice_in_dim(pb1, lo_new + SW - 1, 1, axis=0)
+            lo = jnp.where(do_shift, lo_new, lo)
 
-        # --- slide the window down per the host-precomputed schedule (<= 1
-        # word per column since bucketing guarantees m_max <= W * n_max).
-        do_shift = shift_at[i] > 0
+        # --- slide the window one word down (<= 1 word per column).
         top_val = jnp.where(
             do_shift, top_val + _popcount(vp[0]) - _popcount(vm[0]), top_val
         )
         top_rows = jnp.where(do_shift, top_rows + W, top_rows)
-        lo_new = lo + 1
-        nxt0 = jax.lax.dynamic_slice_in_dim(pb0, lo_new + SW - 1, 1, axis=0)
-        nxt1 = jax.lax.dynamic_slice_in_dim(pb1, lo_new + SW - 1, 1, axis=0)
         shifted = lambda w, nxt: jnp.concatenate([w[1:], nxt], axis=0)
         vp = jnp.where(do_shift, shifted(vp, jnp.full((1, B), _ONES, U32)), vp)
         vm = jnp.where(do_shift, shifted(vm, jnp.zeros((1, B), U32)), vm)
         win0 = jnp.where(do_shift, shifted(win0, nxt0), win0)
         win1 = jnp.where(do_shift, shifted(win1, nxt1), win1)
-        lo = jnp.where(do_shift, lo_new, lo)
 
         # --- one banded column: chain h through the window's words.
-        ca0 = a0[i][None, :]
-        ca1 = a1[i][None, :]
-        eq = (ca0 ^ win0) & (ca1 ^ win1)
+        eq = (a0[i][None, :] ^ win0) & (a1[i][None, :] ^ win1)
 
         def word_step(w, carry):
             vp, vm, hp0, hm0 = carry
-            eqw = eq[w]
-            vpw, vmw = vp[w], vm[w]
-            vx = eqw | vmw
-            eq2 = eqw | hm0
-            hx = (((eq2 & vpw) + vpw) ^ vpw) | eq2
-            hp = vmw | ~(hx | vpw)
-            hm = vpw & hx
-            hpw = hp >> (W - 1)
-            hmw = hm >> (W - 1)
-            hp = (hp << 1) | hp0
-            hm = (hm << 1) | hm0
-            vp = vp.at[w].set(hm | ~(vx | hp))
-            vm = vm.at[w].set(hp & vx)
-            return vp, vm, hpw, hmw
+            vpw, vmw, hpw, hmw = _myers_word(eq[w], vp[w], vm[w], hp0, hm0)
+            return vp.at[w].set(vpw), vm.at[w].set(vmw), hpw, hmw
 
         ones = jnp.ones((B,), U32)
         zeros = jnp.zeros((B,), U32)
@@ -177,120 +178,142 @@ def banded_cost_block(a0, a1, pb0, pb1, n, m, band_words: int,
         done = i == n - 1
         res_now = top_val + _value_to_window(vp, vm, m - top_rows)
         covered = (m - top_rows) <= SW * W
-        res_now = jnp.where(covered, res_now, jnp.int32(1 << 30))
+        res_now = jnp.where(covered, res_now, jnp.int32(INF32))
         result = jnp.where(done, res_now, result)
         return vp, vm, win0, win1, top_val, lo, result, top_rows
 
-    vp0 = jnp.full((SW, B), _ONES, U32)
-    vm0 = jnp.zeros((SW, B), U32)
-    win0 = jax.lax.dynamic_slice_in_dim(pb0, 0, SW, axis=0)
-    win1 = jax.lax.dynamic_slice_in_dim(pb1, 0, SW, axis=0)
-    top_val0 = jnp.zeros((B,), jnp.int32)
-    top_rows0 = jnp.zeros((B,), jnp.int32)
-    lo0 = jnp.int32(0)
-    # Pairs with n == 0 are captured here (cost = m).
-    result0 = m
-    state = (vp0, vm0, win0, win1, top_val0, lo0, result0, top_rows0)
-    state = jax.lax.fori_loop(0, n_max, body, state)
-    return state[6]
+    return body
+
+
+def _setup(a0, pb0, pb1, n, m, band_words: int, diag, schedule):
+    """(SW, n, m, sched, per_pair, initial state) for one bucket."""
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = min(band_words, S)
+    per_pair = schedule is not None
+    if per_pair:
+        sched = jnp.asarray(schedule).astype(jnp.int32)
+        lo0 = jnp.zeros((B,), jnp.int32)
+    else:
+        sched = jnp.asarray(shift_at_array(n_max, S, SW, diag))
+        lo0 = jnp.int32(0)
+    m = m.astype(jnp.int32)
+    state = (
+        jnp.full((SW, B), _ONES, U32),
+        jnp.zeros((SW, B), U32),
+        jax.lax.dynamic_slice_in_dim(pb0, 0, SW, axis=0),
+        jax.lax.dynamic_slice_in_dim(pb1, 0, SW, axis=0),
+        jnp.zeros((B,), jnp.int32),
+        lo0,
+        m,  # pairs with n == 0 are captured here (cost = m)
+        jnp.zeros((B,), jnp.int32),
+    )
+    return SW, n.astype(jnp.int32), m, sched, per_pair, state
+
+
+def banded_cost_block(a0, a1, pb0, pb1, n, m, band_words: int,
+                      diag: tuple | None = None, schedule=None):
+    """Banded edit distances (upper bounds) for one shape bucket.
+
+    Args:
+      a0, a1: (n_max, B) uint32 exploded a-char planes.
+      pb0, pb1: (S, B) uint32 packed negated b profiles (padded rows read as
+        char 'G'; harmless — see ops.bitpack).
+      n, m: (B,) int32 true lengths.
+      band_words: static window height in uint32 words.
+      diag: the shared schedule's true bucket diagonal (see
+        :func:`shift_at_array`).
+      schedule: optional (n_max, B) 0/1 per-pair schedule — pair p's window
+        slides one word down before column i iff ``schedule[i, p]``; None
+        is the shared bucket schedule.
+
+    Returns (B,) int32 banded distances; exact where
+    ``cost <= band_threshold(...)`` (checked by the caller).
+    """
+    SW, n, m, sched, per_pair, state = _setup(
+        a0, pb0, pb1, n, m, band_words, diag, schedule
+    )
+    body = _column_body(a0, a1, pb0, pb1, n, m, SW, sched, per_pair)
+    return jax.lax.fori_loop(0, a0.shape[0], body, state)[6]
 
 
 banded_cost = jax.jit(banded_cost_block, static_argnames=("band_words", "diag"))
 
 
+def banded_cost_block_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int):
+    """Per-pair-schedule form of :func:`banded_cost_block`."""
+    return banded_cost_block(a0, a1, pb0, pb1, n, m, band_words,
+                             schedule=schedule)
+
+
+banded_cost_pp = jax.jit(banded_cost_block_pp, static_argnames=("band_words",))
+
+
 def banded_fill_block(a0, a1, pb0, pb1, n, m, band_words: int,
-                      diag: tuple | None = None):
+                      diag: tuple | None = None, schedule=None):
     """Like :func:`banded_cost_block` but stores the window planes after
     every column, for traceback (`simd::fill` equivalent on the band).
 
     Returns (costs, vp_cols, vm_cols) with vp_cols shape (n_max, SW, B):
     entry i holds the state after processing column i+1 (column 0's state is
     the all-ones init).  The per-column window offsets are implied by
-    :func:`shift_at_array` (shifts apply before the column).
+    :func:`shift_at_array` (shifts apply before the column), or by the
+    per-pair ``schedule``.
     """
-    n_max, B = a0.shape
-    S = pb0.shape[0]
-    SW = min(band_words, S)
-    n = n.astype(jnp.int32)
-    m = m.astype(jnp.int32)
-    shift_at = jnp.asarray(shift_at_array(n_max, S, SW, diag))
-
-    def body(carry, xs):
-        vp, vm, win0, win1, top_val, lo, result, top_rows = carry
-        ca0, ca1, i = xs
-
-        do_shift = shift_at[i] > 0
-        lo_new = lo + 1
-        nxt0 = jax.lax.dynamic_slice_in_dim(pb0, lo_new + SW - 1, 1, axis=0)
-        nxt1 = jax.lax.dynamic_slice_in_dim(pb1, lo_new + SW - 1, 1, axis=0)
-        shifted = lambda w, nxt: jnp.concatenate([w[1:], nxt], axis=0)
-        top_val = jnp.where(
-            do_shift, top_val + _popcount(vp[0]) - _popcount(vm[0]), top_val
-        )
-        top_rows = jnp.where(do_shift, top_rows + W, top_rows)
-        vp = jnp.where(do_shift, shifted(vp, jnp.full((1, B), _ONES, U32)), vp)
-        vm = jnp.where(do_shift, shifted(vm, jnp.zeros((1, B), U32)), vm)
-        win0 = jnp.where(do_shift, shifted(win0, nxt0), win0)
-        win1 = jnp.where(do_shift, shifted(win1, nxt1), win1)
-        lo = jnp.where(do_shift, lo_new, lo)
-
-        ca0 = ca0[None, :]
-        ca1 = ca1[None, :]
-        eq = (ca0 ^ win0) & (ca1 ^ win1)
-
-        def word_step(w, carry2):
-            vp, vm, hp0, hm0 = carry2
-            eqw = eq[w]
-            vpw, vmw = vp[w], vm[w]
-            vx = eqw | vmw
-            eq2 = eqw | hm0
-            hx = (((eq2 & vpw) + vpw) ^ vpw) | eq2
-            hp = vmw | ~(hx | vpw)
-            hm = vpw & hx
-            hpw = hp >> (W - 1)
-            hmw = hm >> (W - 1)
-            hp = (hp << 1) | hp0
-            hm = (hm << 1) | hm0
-            vp = vp.at[w].set(hm | ~(vx | hp))
-            vm = vm.at[w].set(hp & vx)
-            return vp, vm, hpw, hmw
-
-        ones = jnp.ones((B,), U32)
-        zeros = jnp.zeros((B,), U32)
-        vp2, vm2, _, _ = jax.lax.fori_loop(0, SW, word_step, (vp, vm, ones, zeros))
-
-        active = i < n
-        vp = jnp.where(active, vp2, vp)
-        vm = jnp.where(active, vm2, vm)
-        top_val = jnp.where(active, top_val + 1, top_val)
-
-        done = i == n - 1
-        res_now = top_val + _value_to_window(vp, vm, m - top_rows)
-        covered = (m - top_rows) <= SW * W
-        res_now = jnp.where(covered, res_now, jnp.int32(1 << 30))
-        result = jnp.where(done, res_now, result)
-        carry = (vp, vm, win0, win1, top_val, lo, result, top_rows)
-        return carry, (vp, vm)
-
-    vp0 = jnp.full((SW, B), _ONES, U32)
-    vm0 = jnp.zeros((SW, B), U32)
-    win0 = jax.lax.dynamic_slice_in_dim(pb0, 0, SW, axis=0)
-    win1 = jax.lax.dynamic_slice_in_dim(pb1, 0, SW, axis=0)
-    carry = (
-        vp0, vm0, win0, win1,
-        jnp.zeros((B,), jnp.int32), jnp.int32(0), m, jnp.zeros((B,), jnp.int32),
+    SW, n, m, sched, per_pair, state = _setup(
+        a0, pb0, pb1, n, m, band_words, diag, schedule
     )
-    xs = (a0, a1, jnp.arange(n_max, dtype=jnp.int32))
-    carry, (vp_cols, vm_cols) = jax.lax.scan(body, carry, xs)
+    body = _column_body(a0, a1, pb0, pb1, n, m, SW, sched, per_pair)
+
+    def step(carry, i):
+        carry = body(i, carry)
+        return carry, (carry[0], carry[1])
+
+    carry, (vp_cols, vm_cols) = jax.lax.scan(
+        step, state, jnp.arange(a0.shape[0], dtype=jnp.int32)
+    )
     return carry[6], vp_cols, vm_cols
 
 
 banded_fill = jax.jit(banded_fill_block, static_argnames=("band_words", "diag"))
 
 
-#: Per-pair schedules only shift at multiples of this column quantum: the
-#: Pallas kernel's masked window roll then amortizes over SCHEDULE_Q plain
-#: columns (see pallas_banded._columns).
+def banded_ck_block(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
+                    diag: tuple | None = None, schedule=None):
+    """Banded cost + window checkpoints every ``col_block`` columns.
+
+    Returns ``(costs (B,), ck_vp (n_ck, SW, B), ck_vm, ck_tv (n_ck, B))``
+    with ``n_ck = ceil(n_max / col_block)``: checkpoint k is the window
+    planes and ``top_val`` entering column ``k * col_block`` (checkpoint 0
+    is the all-ones init), the contract native ``trace_banded_ck`` reads.
+    Shared or per-pair schedule as in :func:`banded_cost_block`.
+    """
+    n_max = a0.shape[0]
+    SW, n, m, sched, per_pair, state = _setup(
+        a0, pb0, pb1, n, m, band_words, diag, schedule
+    )
+    body = _column_body(a0, a1, pb0, pb1, n, m, SW, sched, per_pair)
+    CB = max(1, min(col_block, n_max))
+
+    def block(carry, k):
+        ck = (carry[0], carry[1], carry[4])
+        lo = k * CB
+        carry = jax.lax.fori_loop(lo, jnp.minimum(lo + CB, n_max), body, carry)
+        return carry, ck
+
+    n_ck = -(-n_max // CB)
+    carry, (ckvp, ckvm, cktv) = jax.lax.scan(
+        block, state, jnp.arange(n_ck, dtype=jnp.int32)
+    )
+    return carry[6], ckvp, ckvm, cktv
+
+
+banded_ck = jax.jit(banded_ck_block,
+                    static_argnames=("band_words", "col_block", "diag"))
+
+
+#: Per-pair gap schedules only shift at multiples of this column quantum
+#: (the certificate's slack below prices the delay).
 SCHEDULE_Q = 32
 
 
@@ -336,93 +359,6 @@ def pair_gap_schedule(n, m, band_words: int, n_max: int, s_words: int):
     thr[bad] = -1
     assert (sched <= 1).all()
     return sched, thr
-
-
-def banded_cost_block_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int):
-    """Per-pair-schedule twin of :func:`banded_cost_block` (jnp reference
-    for the Pallas per-pair mode; bit-identical by construction).
-
-    ``schedule``: (n_max, B) 0/1 — pair p's window slides one word down
-    before column i iff schedule[i, p].
-    """
-    n_max, B = a0.shape
-    S = pb0.shape[0]
-    SW = min(band_words, S)
-    n = n.astype(jnp.int32)
-    m = m.astype(jnp.int32)
-    sched = jnp.asarray(schedule).astype(jnp.int32)
-
-    def body(i, state):
-        vp, vm, win0, win1, top_val, lo, result, top_rows = state
-
-        shift = sched[i]
-        do_shift = shift > 0
-        top_val = jnp.where(
-            do_shift, top_val + _popcount(vp[0]) - _popcount(vm[0]), top_val
-        )
-        top_rows = jnp.where(do_shift, top_rows + W, top_rows)
-        lo_new = lo + shift
-        ent_idx = jnp.minimum(lo_new + SW - 1, S - 1)
-        nxt0 = jnp.take_along_axis(pb0, ent_idx[None, :], axis=0)
-        nxt1 = jnp.take_along_axis(pb1, ent_idx[None, :], axis=0)
-        shifted = lambda w, nxt: jnp.concatenate([w[1:], nxt], axis=0)
-        vp = jnp.where(do_shift, shifted(vp, jnp.full((1, B), _ONES, U32)), vp)
-        vm = jnp.where(do_shift, shifted(vm, jnp.zeros((1, B), U32)), vm)
-        win0 = jnp.where(do_shift, shifted(win0, nxt0), win0)
-        win1 = jnp.where(do_shift, shifted(win1, nxt1), win1)
-        lo = lo_new
-
-        ca0 = a0[i][None, :]
-        ca1 = a1[i][None, :]
-        eq = (ca0 ^ win0) & (ca1 ^ win1)
-
-        def word_step(w, carry):
-            vp, vm, hp0, hm0 = carry
-            eqw = eq[w]
-            vpw, vmw = vp[w], vm[w]
-            vx = eqw | vmw
-            eq2 = eqw | hm0
-            hx = (((eq2 & vpw) + vpw) ^ vpw) | eq2
-            hp = vmw | ~(hx | vpw)
-            hm = vpw & hx
-            hpw = hp >> (W - 1)
-            hmw = hm >> (W - 1)
-            hp = (hp << 1) | hp0
-            hm = (hm << 1) | hm0
-            vp = vp.at[w].set(hm | ~(vx | hp))
-            vm = vm.at[w].set(hp & vx)
-            return vp, vm, hpw, hmw
-
-        ones = jnp.ones((B,), U32)
-        zeros = jnp.zeros((B,), U32)
-        vp2, vm2, _, _ = jax.lax.fori_loop(0, SW, word_step, (vp, vm, ones, zeros))
-
-        active = i < n
-        vp = jnp.where(active, vp2, vp)
-        vm = jnp.where(active, vm2, vm)
-        top_val = jnp.where(active, top_val + 1, top_val)
-
-        done = i == n - 1
-        res_now = top_val + _value_to_window(vp, vm, m - top_rows)
-        covered = (m - top_rows) <= SW * W
-        res_now = jnp.where(covered, res_now, jnp.int32(1 << 30))
-        result = jnp.where(done, res_now, result)
-        return vp, vm, win0, win1, top_val, lo, result, top_rows
-
-    vp0 = jnp.full((SW, B), _ONES, U32)
-    vm0 = jnp.zeros((SW, B), U32)
-    win0 = jax.lax.dynamic_slice_in_dim(pb0, 0, SW, axis=0)
-    win1 = jax.lax.dynamic_slice_in_dim(pb1, 0, SW, axis=0)
-    state = (
-        vp0, vm0, win0, win1,
-        jnp.zeros((B,), jnp.int32), jnp.zeros((B,), jnp.int32), m,
-        jnp.zeros((B,), jnp.int32),
-    )
-    state = jax.lax.fori_loop(0, n_max, body, state)
-    return state[6]
-
-
-banded_cost_pp = jax.jit(banded_cost_block_pp, static_argnames=("band_words",))
 
 
 def band_threshold(band_words: int, n, m, n_max: int, m_max: int):

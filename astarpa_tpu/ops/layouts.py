@@ -6,18 +6,17 @@ word-rows) grid, and the *order* of the sweep is a free choice — each cell
 depends only on its left neighbour (through the ``h`` bits) and its upper
 neighbour (through the ``v`` word).  The reference keeps col/row/diagonal
 orders as scalar benchmark fodder for memory-layout exploration; here they
-double as an executable statement of the dependency structure the TPU
+double as an executable statement of the dependency structure the device
 kernels exploit:
 
-- ``col`` / ``col_local_h`` — column-major: the layout of the sliding
-  banded kernel (`ops/pallas_banded.py`), which walks columns and carries
-  ``v`` in registers.
-- ``row`` — row-major: words resident, columns streamed; the pinned
-  big-band kernel (`ops/pinned.py`) is this order with words on sublanes.
+- ``col`` / ``col_local_h`` — column-major: the order of the banded
+  kernels (`ops/banded.py`, `ops/cuda_banded.py`), which walk columns and
+  carry ``v`` in registers.
+- ``row`` — row-major: words resident, columns streamed.
 - ``diag_ru`` / ``diag_ld`` — anti-diagonal: all cells on one anti-diagonal
-  are independent, which is the staggered wavefront of
-  `ops/pallas_myers.py`; the two orders differ only in sweep direction
-  (and, in numpy, ``diag_*`` vectorize across the diagonal).
+  are independent (a staggered wavefront); the two orders differ only in
+  sweep direction (and, in numpy, ``diag_*`` vectorize across the
+  diagonal).
 
 All five produce bit-identical ``(vp, vm, hp, hm)`` states; the parity test
 (`tests/test_extras.py`) asserts that and checks the distance against the

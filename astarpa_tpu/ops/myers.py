@@ -2,19 +2,18 @@
 
 This is the portable (any-backend) implementation of the hot kernel of the
 reference (`pa-bitpacking/src/myers.rs:27-55` scalar recurrence,
-`simd.rs:98-226` block driver), re-derived for TPU semantics:
+`simd.rs:98-226` block driver), re-derived for 32-bit device words:
 
-- 32 DP cells per uint32 lane instead of 64 per u64 (TPU VPU has no 64-bit
-  integer lanes).
+- 32 DP cells per uint32 word instead of 64 per u64.
 - Columns advance under ``lax.scan`` (sequential DP dependency), words
   within a column chain the horizontal difference ``h`` exactly like the
   reference chains ``h`` between 64-row blocks.
 - Fully batchable: every function vmaps over leading batch dimensions, so
-  one scan step processes ``batch x words`` lanes on the VPU.
+  one scan step processes ``batch x words`` words on the device.
 
-The Pallas kernel in :mod:`astarpa_tpu.ops.pallas_myers` implements the same
-contract with anti-diagonally staggered words for peak throughput; this
-module is the semantic reference it is tested against.
+The banded kernels (:mod:`astarpa_tpu.ops.banded`, and on the GPU
+:mod:`astarpa_tpu.ops.cuda_banded`) compute the same recurrence over a
+sliding band; at full profile height they are the full-rectangle DP.
 
 Difference encodings (cf. `pa-bitpacking/src/encoding.rs`):
 - vertical: ``(vp, vm)`` uint32 bit-planes; +1 where vp bit set, -1 where vm.

@@ -84,7 +84,7 @@ class MultiHostRunner:
             stats.cells_computed += cstats.cells_computed
             stats.aligned_bp += cstats.aligned_bp
             stats.direct_traces += cstats.direct_traces
-            stats.kernel = cstats.kernel or stats.kernel
+            stats.kernels += cstats.kernels
 
         try:
             if with_cigars:

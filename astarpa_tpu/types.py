@@ -1,6 +1,6 @@
 """Core alignment types: positions, costs, CIGARs.
 
-TPU-native re-design of the reference's core type layer (the external
+Re-design of the reference's core type layer (the external
 `pa-types` crate; usage visible at `/root/reference/astarpa/src/lib.rs:46`,
 `/root/reference/pa-affine-types/src/cigar.rs:265-334`).  Semantics:
 

@@ -8,7 +8,7 @@ the instance receives the callback stream of `pa-vis/src/lib.rs:26-129`
 - :class:`NoVis`: the no-op default.
 - :class:`Visualizer`: renders the NW grid (explored / expanded / extended
   states, block fills, the final path) to PNG frames per layer or a single
-  last frame — headless (pure stdlib zlib PNG encoder), the TPU-era stand-in
+  last frame — headless (pure stdlib zlib PNG encoder), this repo's stand-in
   for the reference's SDL2 window.  The web/HTML export lives in
   :mod:`astarpa_tpu.vis.html` (pa-web equivalent).
 """

@@ -4,8 +4,8 @@
  * Sequences must be ACGT bytes.  Returned CIGAR strings are malloc'd and
  * must be released with astarpa_free().
  */
-#ifndef ASTARPA_TPU_NATIVE_H
-#define ASTARPA_TPU_NATIVE_H
+#ifndef ASTARPA_NATIVE_H
+#define ASTARPA_NATIVE_H
 
 #include <stdint.h>
 
@@ -68,4 +68,4 @@ void astarpa_free(char* p);
 }
 #endif
 
-#endif /* ASTARPA_TPU_NATIVE_H */
+#endif /* ASTARPA_NATIVE_H */

@@ -1,8 +1,8 @@
 // astarpa_native — C++ runtime for the A*PA search path.
 //
 // The A* loop is data-dependent pointer chasing (hash maps, bucket queues,
-// contour probes) — the part of the aligner that does not map to TPUs and
-// the part the reference keeps hottest in native code.  This library is the
+// contour probes) — the part of the aligner that does not map to the batched
+// device DP and the part the reference keeps hottest in native code.  This library is the
 // production implementation of the same semantics as the Python runtime in
 // astarpa_tpu/astar (which stays as the readable reference / oracle):
 //

@@ -2,10 +2,10 @@
 """BASELINE.json config-matrix benchmarks (one JSON line per config).
 
 Configs (BASELINE.md):
-  #1 bitpacked cost-only, 1kbp e=1%   (staggered full-rectangle kernel)
+  #1 bitpacked cost-only, 1kbp e=1%   (banded kernel at full height)
   #2 banded cost + CIGAR, 10kbp e=5%  (banded kernel + native traceback)
   #3 SH/GCSH-guided A*, 10kbp e=5%    (native A* runtime, per-core)
-  #4 GCSH + pruning, 100kbp e=10%     (batch banded on TPU + native A*)
+  #4 GCSH + pruning, 100kbp e=10%     (batch banded on the device + native A*)
   #5 host streaming, simulated stripes (MultiHostRunner plumbing)
 
 All throughputs oracle-checked on a subsample.  Usage:
@@ -19,8 +19,6 @@ import json
 import sys
 import time
 
-import numpy as np
-
 sys.path.insert(0, ".")
 
 
@@ -32,39 +30,20 @@ def _oracle_check(pairs, costs, k=4):
 
 
 def bench_config1(quick):
-    import jax
-    import jax.numpy as jnp
-
+    """Cost-only at 1kbp: the batch ladder with a full-height window (the
+    band clamps to the profile height, so the first rung is exact)."""
     from astarpa_tpu import generate
-    from astarpa_tpu.ops import pallas_myers
+    from astarpa_tpu.parallel.runner import BatchAligner
 
     n, batch = 1000, 1024 if not quick else 128
     pairs = generate.generate_batch(8, n, 0.01, generate.ErrorModel.UNIFORM, 1)
     pairs = pairs * (batch // 8)
-    args, _ = pallas_myers.pack_batch_staggered(pairs, lane_multiple=batch)
-    on_tpu = jax.default_backend() == "tpu"
-    fn = (
-        (lambda *a: pallas_myers.nw_cost(*a, lanes_per_program=min(256, batch)))
-        if on_tpu
-        else (lambda a0, a1, p0, p1, ns, ms: jax.vmap(
-            __import__("astarpa_tpu.ops.myers", fromlist=["x"]).nw_cost_padded
-        )(a0.T, a1.T, p0.T, p1.T, ns, ms))
-    )
-    costs = np.asarray(fn(*args))[: len(pairs)]
+    ba = BatchAligner(band_words=n, lane_multiple=batch, domain_mode="off")
+    costs = ba.cost(pairs)  # warmup/compile
     _oracle_check(pairs, costs)
-    K = 8 if on_tpu else 1
-
-    @jax.jit
-    def many(a0, a1, p0, p1, ns, ms):
-        def body(i, acc):
-            return acc + fn(a0 ^ i.astype(jnp.uint32), a1, p0, p1, ns, ms)
-
-        return jax.lax.fori_loop(0, K, body, jnp.zeros((batch,), jnp.int32))
-
-    np.asarray(many(*args))
     t0 = time.perf_counter()
-    np.asarray(many(*args))
-    dt = (time.perf_counter() - t0) / K
+    ba.cost(pairs)
+    dt = time.perf_counter() - t0
     return {
         "config": "#1 cost-only 1kbp e=1%",
         "Gbp_per_s": round(batch * n / dt / 1e9, 3),
@@ -173,8 +152,7 @@ def bench_config5(quick):
     else:
         # The real config #5 shape: 500kbp ONT-like e=15%.  The e=15%
         # distance (~0.13*n) needs ~2048-word bands: starting the ladder
-        # there avoids compile-heavy failed rungs, and the shared pinned
-        # kernel (TB-shrunk residency) carries it at ~0.8-0.9 Tcells/s.
+        # there avoids failed rungs.
         pairs = [
             generate.generate_model(
                 500_000, 0.15, generate.ErrorModel.NOISY_INSERT, s

@@ -6,8 +6,8 @@ figures and videos (`pa-bin/examples/astarpa-figures/{intro,layers,
 comparison,limitations,no-matches}.rs`, `astarpa2-figures/{intro,layers,
 comparison,doubling,trace,...}.rs`, `domains.rs`, `local-doubling.rs`,
 `path-tracing.rs`, `readme-videos.rs`).  Each binary is a visualizer
-Config + a handful of aligner runs on small inputs; this script is the
-TPU-repo equivalent — one figure function per family, rendering headless
+Config + a handful of aligner runs on small inputs; this script is this
+repo's equivalent — one figure function per family, rendering headless
 PNG frames + a self-contained interactive HTML page per animation (the
 stand-in for the reference's SDL window and GIF/video exports).
 

@@ -1,11 +1,11 @@
-"""Profile the native direct whole-pair DT trace (host-only, no TPU).
+"""Profile the native direct whole-pair DT trace (host only).
 
 Times `native.trace_direct_batch` on N-pair batches at the steady-state
 serving shape (10kbp e=5%), with per-phase stats via ASTARPA_TRACE_PROF
 on a subsample.  Costs come from the native full-height Myers oracle.
 
 Run from the repo root (CPU only):
-    JAX_PLATFORMS='' JAX_PLATFORM_NAME=cpu python scripts/profile_direct.py \
+    JAX_PLATFORMS=cpu python scripts/profile_direct.py \
         [n_bp] [e] [n_pairs] [xdrop]
 """
 
@@ -35,7 +35,7 @@ costs = [oracle.levenshtein_myers(a, b) for a, b in pairs]
 print(f"oracle costs: {time.perf_counter()-t0:.1f}s "
       f"(d mean {np.mean(costs):.0f})", flush=True)
 
-from astarpa_tpu.ops.pallas_myers import pack_batch_staggered
+from astarpa_tpu.ops.bitpack import pack_batch_staggered
 
 (a0, a1, pb0, pb1, nsj, msj), B0 = pack_batch_staggered(pairs,
                                                         lane_multiple=8)

@@ -5,7 +5,7 @@ import pytest
 
 from astarpa_tpu import generate, oracle
 from astarpa_tpu.ops import banded
-from astarpa_tpu.ops.pallas_myers import pack_batch_staggered
+from astarpa_tpu.ops.bitpack import pack_batch_staggered
 from astarpa_tpu.parallel.runner import BatchAligner
 
 
@@ -95,10 +95,9 @@ def test_batch_aligner_ladder_clamps_to_full_height():
 
 
 @pytest.mark.slow
-def test_batch_aligner_mesh_bigband_ck(monkeypatch):
-    """Big-band CIGARs ride the mesh: the sharded ck dispatch picks the
-    pinned / striped layouts (traced-safe static-window mode) per shard.
-    Thresholds are shrunk so tiny test bands exercise the real routing."""
+def test_batch_aligner_mesh_bigband_ck():
+    """Big-band CIGARs ride the mesh: every shard runs the checkpointing
+    kernel at a band near full height, with verified CIGARs."""
     import jax
     from jax.sharding import Mesh
 
@@ -111,79 +110,64 @@ def test_batch_aligner_mesh_bigband_ck(monkeypatch):
     pairs = [
         generate.uniform_seeded(300 + 17 * s, 0.06, 40 + s) for s in range(4)
     ]
-    for patch, want_kind in (
-        (dict(PINNED_MIN_SW=4, PINNED_MAX_SW=64, STRIPED_MIN_SW=640),
-         "pinned-ck-sharded"),
-        (dict(PINNED_MIN_SW=2, PINNED_MAX_SW=2, STRIPED_MIN_SW=640),
-         "striped-ck-sharded"),
-        # striped-first preference (STRIPED_MIN_SW and the pp<512 arm) is
-        # covered by test_mesh_ck_kind_routing_table (predicate only) and
-        # dryrun_multichip's third leg (end-to-end on the 8-device mesh).
-    ):
-        for k, v in patch.items():
-            monkeypatch.setattr(rmod, k, v)
-        ba = BatchAligner(band_words=8, lane_multiple=128, mesh=mesh,
-                          pallas_interpret=True, domain_mode="off",
-                          direct_dt=False)
-        res = ba.align(pairs)
-        assert rmod.LAST_KERNEL == want_kind
-        for (a, b), (c, cig) in zip(pairs, res):
-            assert c == oracle.levenshtein(a, b)
-            assert cig.verify(a, b) == c
-
-
-def test_mesh_ck_kind_routing_table():
-    """r5 routing predicate (no kernels run): striped is preferred
-    wherever it can serve — from STRIPED_MIN_SW up unconditionally, and
-    below it whenever the sliding kernel's pairs-per-program collapses
-    (pp < 512, sw >= 64); pinned only where striped's guards fail; the
-    sliding kind keeps small healthy-pp bands."""
-    import jax
-    from jax.sharding import Mesh
-
-    devs = np.array(jax.devices()[:8])
-    if len(devs) < 8:
-        pytest.skip("needs 8 virtual devices")
-    mesh = Mesh(devs, ("batch",))
     ba = BatchAligner(band_words=8, lane_multiple=128, mesh=mesh,
-                      pallas_interpret=True)
-    kind = lambda sw, pp, CB=65536, B=1024: ba._mesh_ck_kind(
-        sw, 100_000, 4096, B, CB, pp
-    )
-    assert kind(2048, 64) == "striped"     # >= STRIPED_MIN_SW
-    assert kind(4096, 64) == "striped"     # > PINNED_MAX_SW
-    assert kind(512, 128) == "striped"     # collapse arm (pp<512, sw>=64)
-    assert kind(64, 128) == "striped"      # collapse arm lower edge
-    assert kind(32, 128) == "sliding"      # sw < 64: striped/pinned out
-    assert kind(512, 512) == "sliding"     # healthy pp, below MIN_SW
-    # striped's own guards fail -> pinned where it fits, else sliding.
-    assert kind(1024, 64, CB=1024) == "pinned"   # CB < sw+8
-    assert kind(644, 64, CB=65536) == "pinned"   # sw % 8 != 0
-    assert kind(644, 64, CB=512) == "sliding"    # neither big-band kind
+                      domain_mode="off", direct_dt=False)
+    res = ba.align(pairs)
+    assert rmod.LAST_KERNEL == "jnp-ck-sharded"
+    for (a, b), (c, cig) in zip(pairs, res):
+        assert c == oracle.levenshtein(a, b)
+        assert cig.verify(a, b) == c
 
 
-def test_batch_aligner_striped_first_ck(monkeypatch):
-    """Single-device ck dispatch prefers the striped ck kernel from
-    STRIPED_MIN_SW up even where the pinned kernel fits (r5: striped wins
-    the whole former pinned range — scripts/bench_ck_kernels.py), with
-    verified CIGARs off the 8-aligned-top checkpoint contract."""
+@pytest.mark.parametrize("backend,want", [
+    ("cpu", "jnp"), ("gpu", RuntimeError), ("rocm", RuntimeError),
+    ("metal", RuntimeError),
+])
+def test_mesh_ck_kind_routing_table(backend, want, monkeypatch):
+    """The one dispatch table: cpu -> the jnp references; gpu -> the CUDA
+    kernel, which cannot be built here (no nvcc), so it raises instead of
+    falling back; any other backend raises."""
+    from astarpa_tpu.ops import cuda_banded, kernels
+
+    def no_library():
+        raise RuntimeError("no CUDA library")
+
+    monkeypatch.setattr(cuda_banded, "load", no_library)
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError):
+            kernels.banded_kernels(backend)
+    else:
+        kern = kernels.banded_kernels(backend)
+        assert kern.name == want
+        assert kern.cost is banded.banded_cost and kern.ck is banded.banded_ck
+
+
+def test_dispatch_gpu_names_cuda_kernels(monkeypatch):
+    """With the library loaded, gpu resolves to the CUDA entry points."""
+    from astarpa_tpu.ops import cuda_banded, kernels
+
+    monkeypatch.setattr(cuda_banded, "load", lambda: 0.0)
+    kern = kernels.banded_kernels("gpu")
+    assert kern.name == "cuda"
+    assert kern.cost is cuda_banded.banded_cost_cuda
+    assert kern.ck is cuda_banded.banded_ck_cuda
+
+
+def test_batch_aligner_striped_first_ck():
+    """Single-device ck dispatch: with direct traces off every rung runs
+    the checkpointing kernel of the backend (labelled per rung), and the
+    CIGARs traced from its checkpoints verify."""
     from astarpa_tpu import native
-    from astarpa_tpu.parallel import runner as rmod
 
     if not native.available():
         pytest.skip("no native toolchain")
-    monkeypatch.setattr(rmod, "STRIPED_MIN_SW", 8)
-    monkeypatch.setattr(rmod, "PINNED_MIN_SW", 4)
-    monkeypatch.setattr(rmod, "PINNED_MAX_SW", 64)
     pairs = [
         generate.uniform_seeded(300 + 17 * s, 0.06, 140 + s) for s in range(4)
     ]
-    ba = BatchAligner(band_words=8, lane_multiple=128,
-                      pallas_interpret=True, domain_mode="off",
+    ba = BatchAligner(band_words=8, lane_multiple=128, domain_mode="off",
                       direct_dt=False)
-    rmod.LAST_KERNEL = None
-    res = ba.align(pairs)
-    assert rmod.LAST_KERNEL == "striped-ck", rmod.LAST_KERNEL
+    res, stats = ba.align_with_stats(pairs)
+    assert stats.kernels and set(stats.kernels) == {"jnp-ck"}, stats.kernels
     for (a, b), (c, cig) in zip(pairs, res):
         assert c == oracle.levenshtein(a, b)
         assert cig.verify(a, b) == c
@@ -200,7 +184,7 @@ def test_shape_quantum_exactness():
         n = int(rng.integers(150, 700))
         e = float(rng.choice([0.02, 0.1, 0.25]))
         pairs.append(generate.uniform_seeded(n, e, 1000 + s))
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="off", shape_quantum=128)
     res, stats = ba.align_with_stats(pairs)
     for (a, b), (c, cig) in zip(pairs, res):
@@ -219,7 +203,7 @@ def test_shape_quantum_exactness():
 def test_align_iter_pipelined_interpret():
     """Streaming align_iter yields per-batch results in order, identical to
     align(); batch k's traces drain while batch k+1 dispatches."""
-    ba = BatchAligner(band_words=8, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=8, lane_multiple=128,
                       domain_mode="off")
     batches = [
         [generate.uniform_seeded(200 + 13 * s + 50 * k, 0.08, 100 * k + s)
@@ -240,7 +224,7 @@ def test_cost_iter_pipelined_interpret():
     batch k+1's pack/dispatch overlapping batch k's in-flight kernel;
     includes a trivial (empty) pair, a mixed bucket, and a retry-prone
     low starting band so the deferred-certification ladder is exercised."""
-    ba = BatchAligner(band_words=2, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=2, lane_multiple=128,
                       domain_mode="off")
     batches = [
         [generate.uniform_seeded(180 + 11 * s + 40 * k, 0.12, 77 * k + s)
@@ -256,7 +240,7 @@ def test_cost_iter_pipelined_interpret():
             assert int(c) == oracle.levenshtein(a, b)
     # Identical to the unpipelined path.
     ba2 = BatchAligner(band_words=2, lane_multiple=128,
-                       pallas_interpret=True, domain_mode="off")
+                       domain_mode="off")
     for pairs, (costs, _st) in zip(batches, got):
         assert list(map(int, ba2.cost(pairs))) == list(map(int, costs))
 
@@ -266,7 +250,7 @@ def test_align_single_char_pairs_interpret():
     pairs crashed the shared Pallas kernel at trace time — the shift
     branch's ref slices were statically out of bounds even though the
     schedule has no shifts (fixed by the static can_shift flag)."""
-    ba = BatchAligner(band_words=2, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=2, lane_multiple=128,
                       domain_mode="off")
     pairs = [(b"A", b"A"), (b"A", b"C"), (b"AC", b"A")]
     for (a, b), (c, cig) in zip(pairs, ba.align(pairs)):
@@ -312,9 +296,8 @@ def test_batch_aligner_mesh():
 
 
 def test_batch_aligner_mesh_runs_pallas():
-    """Under a mesh the *Pallas* kernel must be selected per shard (round-1
-    verdict: the mesh path silently fell back to the ~140x slower jnp scan).
-    Runs the real kernel in interpret mode on an 8-device CPU mesh."""
+    """Under a mesh every shard runs the backend's kernel through
+    shard_map (8-device CPU mesh: the jnp cost kernel)."""
     import jax
     from jax.sharding import Mesh
 
@@ -326,10 +309,11 @@ def test_batch_aligner_mesh_runs_pallas():
         generate.uniform_seeded(40 + s % 17, [0.0, 0.1, 0.3][s % 3], 500 + s)
         for s in range(1024)
     ]
-    ba = BatchAligner(band_words=4, lane_multiple=1024, mesh=mesh, pallas_interpret=True)
+    ba = BatchAligner(band_words=4, lane_multiple=1024, mesh=mesh)
     runner_mod.LAST_KERNEL = None
-    costs = ba.cost(pairs)
-    assert runner_mod.LAST_KERNEL == "pallas"
+    costs, stats = ba.cost_with_stats(pairs)
+    assert runner_mod.LAST_KERNEL == "jnp-cost-sharded"
+    assert set(stats.kernels) == {"jnp-cost-sharded"}
     assert list(costs) == [oracle.levenshtein(a, b) for a, b in pairs]
 
 
@@ -342,8 +326,8 @@ def test_batch_aligner_cigars():
 
 
 def test_batch_aligner_cigars_fill_trace():
-    """direct_dt=False keeps the jnp banded_fill + native.trace_banded
-    fallback covered (with it on, known-cost CPU traces go direct)."""
+    """direct_dt=False: CIGARs come from the checkpointing kernel's
+    planes (with it on, these small pairs trace directly)."""
     pairs = _mixed_pairs(40, count=6)
     ba = BatchAligner(band_words=8, lane_multiple=8, direct_dt=False)
     for (a, b), (cost, cigar) in zip(pairs, ba.align(pairs)):
@@ -352,8 +336,8 @@ def test_batch_aligner_cigars_fill_trace():
 
 
 def test_align_combined_ck_interpret():
-    """The TPU combined cost+CIGAR ladder (checkpointing Pallas kernel +
-    native DT-burst traces) end-to-end in interpret mode on CPU.
+    """The combined cost+CIGAR ladder (checkpointing kernel + native
+    DT-burst traces) end to end on the CPU backend.
     direct_dt=False pins the checkpoint path — with it on, these small
     pairs would take the direct whole-pair DT trace instead."""
     from astarpa_tpu import native
@@ -364,7 +348,7 @@ def test_align_combined_ck_interpret():
         generate.uniform_seeded(150 + (s * 41) % 80, [0.02, 0.12][s % 2], 40 + s)
         for s in range(24)
     ]
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="off", direct_dt=False)
     results, stats = ba.align_with_stats(pairs)
     assert stats.direct_traces == 0
@@ -390,7 +374,7 @@ def test_align_direct_dt_interpret():
         )
         for s in range(24)
     ] + [(b"ACGT" * 30, b"")]  # trivial pair stays off-device
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="off")
     results, stats = ba.align_with_stats(pairs)
     assert stats.direct_traces == 24  # every nontrivial pair went direct
@@ -401,8 +385,7 @@ def test_align_direct_dt_interpret():
 
 def test_align_domain_ladder_ck_interpret():
     """The per-pair domain-ladder CIGAR path (checkpointing kernel with
-    per-pair schedules + per-pair-schedule native traces) in interpret
-    mode — this path was TPU-only and untested before round 3."""
+    per-pair schedules + per-pair-schedule native traces)."""
     from astarpa_tpu import native
 
     if not native.available():
@@ -414,7 +397,7 @@ def test_align_domain_ladder_ck_interpret():
         )
         for s in range(6)
     ]
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="gap", domain_min_bp=0, direct_dt=False)
     results, stats = ba.align_with_stats(pairs)
     assert stats.direct_traces == 0
@@ -439,7 +422,7 @@ def test_align_domain_ladder_direct_interpret():
         )
         for s in range(6)
     ]
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="gap", domain_min_bp=0)
     results, stats = ba.align_with_stats(pairs)
     assert stats.direct_traces > 0
@@ -448,29 +431,9 @@ def test_align_domain_ladder_direct_interpret():
         assert cigar.verify(a, b) == cost
 
 
-@pytest.mark.slow
-def test_align_bucket_ck_pp0_fallback(monkeypatch):
-    """When _select_pp reports the band/batch geometry cannot host the ck
-    kernel (pp < 128), the combined path must fall back to the cost ladder
-    + trace path instead of asserting (round-2 advisor finding)."""
-    from astarpa_tpu import native
-    from astarpa_tpu.parallel import runner as runner_mod
-
-    if not native.available():
-        pytest.skip("no native toolchain")
-    pairs = _mixed_pairs(77, count=5)
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
-                      domain_mode="off", direct_dt=False)
-    monkeypatch.setattr(runner_mod, "_select_pp", lambda *a, **k: 0)
-    results = ba.align(pairs)
-    for (a, b), (cost, cigar) in zip(pairs, results):
-        assert cost == oracle.levenshtein(a, b)
-        assert cigar.verify(a, b) == cost
-
-
 def test_batch_aligner_mesh_ck_cigars():
     """Mesh parity for the product path: costs + CIGARs ride the sharded
-    checkpointing Pallas kernel (8-device CPU mesh, interpret mode)."""
+    checkpointing kernel (8-device CPU mesh)."""
     import jax
     from jax.sharding import Mesh
 
@@ -486,11 +449,11 @@ def test_batch_aligner_mesh_ck_cigars():
         for s in range(48)
     ]
     ba = BatchAligner(band_words=4, lane_multiple=128, mesh=mesh,
-                      pallas_interpret=True, domain_mode="off",
+                      domain_mode="off",
                       direct_dt=False)
     runner_mod.LAST_KERNEL = None
     results = ba.align(pairs)
-    assert runner_mod.LAST_KERNEL == "pallas-ck-sharded"
+    assert runner_mod.LAST_KERNEL == "jnp-ck-sharded"
     for (a, b), (cost, cigar) in zip(pairs, results):
         assert cost == oracle.levenshtein(a, b)
         assert cigar.verify(a, b) == cost
@@ -516,12 +479,12 @@ def test_batch_aligner_mesh_domain_ladder_ck():
         for s in range(10)
     ]
     ba = BatchAligner(band_words=4, lane_multiple=128, mesh=mesh,
-                      pallas_interpret=True, domain_mode="gap",
+                      domain_mode="gap",
                       domain_min_bp=0, direct_dt=False)
     runner_mod.LAST_KERNEL = None
     results = ba.align(pairs)
     assert runner_mod.LAST_KERNEL in (
-        "pallas-ck-perpair-sharded", "pallas-ck-sharded"
+        "jnp-ck-pp-sharded", "jnp-ck-sharded"
     ), runner_mod.LAST_KERNEL
     for (a, b), (cost, cigar) in zip(pairs, results):
         assert cost == oracle.levenshtein(a, b)
@@ -529,26 +492,16 @@ def test_batch_aligner_mesh_domain_ladder_ck():
 
 
 def test_pallas_banded_parity_interpret():
-    """The Pallas kernel is bit-identical to the jnp reference (interpret
-    mode on CPU; the same check runs compiled on real TPU in bench.py)."""
-    from astarpa_tpu.ops.pallas_banded import banded_cost_tpu
-
+    """The checkpoint twin's costs are the cost kernel's, bit for bit, at
+    small, medium and near-full bands (shared schedule)."""
     pairs = [
         generate.uniform_seeded(300 + (s * 37) % 120, [0.02, 0.08, 0.15][s % 3], s)
-        for s in range(128)
+        for s in range(32)
     ]
-    args, B0 = pack_batch_staggered(pairs, lane_multiple=128)
-    a0, a1, pb0, pb1, n, m = args
-    # 4/8: unrolled word loop; 72: the grouped large-band word loop.
-    for sw in (4, 8, 72):
-        sw = min(sw, pb0.shape[0] // 8 * 8) if sw > 64 else sw
-        ref = np.asarray(banded.banded_cost(a0, a1, pb0, pb1, n, m, band_words=sw))
-        got = np.asarray(
-            banded_cost_tpu(
-                a0, a1, pb0, pb1, n, m,
-                band_words=sw, pairs_per_program=128, interpret=True,
-            )
-        )
+    args, B0 = pack_batch_staggered(pairs, lane_multiple=32)
+    for sw in (4, 8, 13):
+        ref = np.asarray(banded.banded_cost(*args, band_words=sw))
+        got = np.asarray(banded.banded_ck(*args, band_words=sw, col_block=64)[0])
         assert (ref == got).all(), sw
 
 
@@ -605,10 +558,8 @@ def test_pair_gap_schedule_certified_exact():
 
 @pytest.mark.slow
 def test_pallas_perpair_parity_interpret():
-    """Pallas per-pair mode is bit-identical to the jnp per-pair reference
-    (gap-centered schedules, interpret mode)."""
-    from astarpa_tpu.ops.pallas_banded import banded_cost_tpu
-
+    """The per-pair checkpoint twin's costs are the per-pair cost kernel's
+    (gap-centered schedules)."""
     pairs = [
         generate.uniform_seeded(200 + (s * 31) % 150, [0.02, 0.1, 0.25][s % 3], 70 + s)
         for s in range(128)
@@ -623,12 +574,8 @@ def test_pallas_perpair_parity_interpret():
         ref = np.asarray(
             banded.banded_cost_pp(a0, a1, pb0, pb1, n, m, sched, band_words=sw)
         )
-        got = np.asarray(
-            banded_cost_tpu(
-                a0, a1, pb0, pb1, n, m, band_words=sw,
-                pairs_per_program=128, interpret=True, schedule=sched,
-            )
-        )
+        got = np.asarray(banded.banded_ck(*args, band_words=sw, col_block=96,
+                                          schedule=sched)[0])
         assert (ref == got).all(), sw
 
 
@@ -665,25 +612,24 @@ def test_domain_ladder_gcsh_mode():
 
 
 def test_domain_ladder_unservable_band_falls_back(monkeypatch):
-    """Regression (found by scripts/bench_gcsh_highe.py): at e~25% the
-    per-pair hulls approach the full Ukkonen band and NO per-pair kernel
-    can serve them — pinned-pp residency and the sliding per-pair
-    column-block model both exceed VMEM (the latter now raises ValueError
-    instead of asserting).  The ladder must break to the always-converging
-    shared path, not crash."""
-    from astarpa_tpu.ops import pallas_banded
+    """When no kernel can serve a per-pair band (the CUDA kernel's plan
+    raises ValueError past its band limit), the domain ladder breaks to the
+    always-converging shared path instead of crashing."""
+    from astarpa_tpu.ops import cuda_banded
 
     with pytest.raises(ValueError):
-        pallas_banded._default_col_block(4096, 128, 10_000,
-                                         pallas_banded.EMIT_COST, True)
+        cuda_banded.plan(cuda_banded.MAX_WARPS * 32 * 32 + 1)
+    orig = BatchAligner._dispatch
 
-    def boom(self, *a, **kw):
-        raise ValueError("no per-pair kernel fits")
+    def boom(self, stats, args, sw, diag=None, schedule=None, CB=None):
+        if schedule is not None:
+            raise ValueError("no per-pair kernel fits")
+        return orig(self, stats, args, sw, diag, schedule, CB)
 
-    monkeypatch.setattr(BatchAligner, "_domain_kernel", boom)
+    monkeypatch.setattr(BatchAligner, "_dispatch", boom)
     pairs = [generate.uniform_seeded(300 + 17 * s, 0.2, 60 + s)
              for s in range(3)]
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="gap", domain_min_bp=0)
     costs = ba.cost(pairs)
     assert [int(c) for c in costs] == [
@@ -705,7 +651,7 @@ def test_gcsh_prefetch_streaming():
          for s in range(3)]
         for k in range(3)
     ]
-    ba = BatchAligner(band_words=4, lane_multiple=128, pallas_interpret=True,
+    ba = BatchAligner(band_words=4, lane_multiple=128,
                       domain_mode="gcsh", domain_min_bp=0, domain_k=10,
                       domain_r=2)
     for pairs, (costs, _st) in zip(batches, ba.cost_iter(iter(batches))):
@@ -721,8 +667,8 @@ def test_gcsh_prefetch_streaming():
 
 
 def test_batch_align_fill_native_trace():
-    """Device fill pass + native banded traceback produces exact, verified
-    CIGARs (skipped when no native toolchain)."""
+    """Costs + CIGARs on mixed pairs, trivial ones included (skipped when
+    no native toolchain)."""
     from astarpa_tpu import native
 
     if not native.available():
@@ -747,7 +693,8 @@ def test_banded_fill_matches_cost():
 
 
 def _host_checkpoints(vp_cols, vm_cols, shift, n_vec, CB, n_blocks):
-    """Derive (ckvp, ckvm, cktv) exactly as the TPU ck kernel emits them:
+    """Derive (ckvp, ckvm, cktv) from the per-column fill, independently of
+    the checkpoint kernels:
     checkpoint k = window planes + top_val after column k*CB (checkpoint 0 =
     all-ones init / 0).  Mirrors the kernel's order: absorb-on-shift before
     the column, +1 only while the pair is active."""
@@ -776,7 +723,7 @@ def _host_checkpoints(vp_cols, vm_cols, shift, n_vec, CB, n_blocks):
 @pytest.mark.parametrize("use_dt", [True, False])
 def test_trace_banded_ck_cpu(use_dt):
     """Checkpointed native traceback: derive checkpoints from the jnp fill
-    (= what the TPU ck kernel emits) and verify exact CIGARs, both via DT
+    (= what the ck kernels emit) and verify exact CIGARs, both via DT
     bursts and via the stripe-recompute fallback."""
     from astarpa_tpu import native
 
@@ -810,11 +757,10 @@ def test_trace_banded_ck_cpu(use_dt):
 
 
 def test_ck_kernel_interpret_top_val():
-    """The ck kernel's cktv output matches the host-derived top_val."""
-    from astarpa_tpu.ops.pallas_banded import banded_ck_tpu
-
-    pairs = [generate.uniform_seeded(200 + 13 * s, 0.1, 900 + s) for s in range(128)]
-    args, B0 = pack_batch_staggered(pairs, lane_multiple=128)
+    """The checkpoint twin's planes and top_val match the host-derived
+    checkpoints of the per-column fill."""
+    pairs = [generate.uniform_seeded(200 + 13 * s, 0.1, 900 + s) for s in range(16)]
+    args, B0 = pack_batch_staggered(pairs, lane_multiple=16)
     a0, a1, pb0, pb1, n, m = args
     n_max, S = a0.shape[0], pb0.shape[0]
     SW, CB = 8, 64
@@ -824,14 +770,45 @@ def test_ck_kernel_interpret_top_val():
     ckvp, ckvm, cktv = _host_checkpoints(
         np.asarray(vp_cols), np.asarray(vm_cols), shift, n, CB, n_blocks
     )
-    got, kvp, kvm, ktv = banded_ck_tpu(
-        a0, a1, pb0, pb1, n, m,
-        band_words=SW, col_block=CB, pairs_per_program=128, interpret=True,
-    )
+    got, kvp, kvm, ktv = banded.banded_ck(*args, band_words=SW, col_block=CB)
     assert (np.asarray(got) == np.asarray(costs)).all()
     assert (np.asarray(kvp) == ckvp).all()
     assert (np.asarray(kvm) == ckvm).all()
     assert (np.asarray(ktv) == cktv).all()
+
+
+@pytest.mark.parametrize("per_pair", [False, True])
+@pytest.mark.parametrize("sw,cb", [(2, 16), (4, 64), (8, 50), (13, 1000)])
+def test_ck_twin_matches_fill(per_pair, sw, cb):
+    """banded_ck's checkpoint k is the fill's state after column k*CB-1
+    (k = 0: the all-ones init), and its costs are the cost kernel's, for
+    the shared schedule and for per-pair (gap-centered) schedules."""
+    pairs = _mixed_pairs(300 + sw, count=8)
+    args, B0 = pack_batch_staggered(pairs, lane_multiple=8)
+    a0, a1, pb0, pb1, n, m = args
+    n_max, S = a0.shape[0], pb0.shape[0]
+    SW = min(sw, S)
+    sched = None
+    if per_pair:
+        sched, _thr = banded.pair_gap_schedule(np.asarray(n), np.asarray(m),
+                                               SW, n_max, S)
+    costs, vpc, vmc = jax_fill(args, SW, sched)
+    got, kvp, kvm, ktv = (np.asarray(x) for x in banded.banded_ck(
+        *args, band_words=sw, col_block=cb, schedule=sched))
+    CB = min(cb, n_max)
+    assert kvp.shape == (-(-n_max // CB), SW, a0.shape[1]) == kvm.shape
+    assert ktv.shape == (kvp.shape[0], a0.shape[1])
+    assert (got == costs).all()
+    assert (kvp[0] == 0xFFFFFFFF).all() and (kvm[0] == 0).all()
+    assert (ktv[0] == 0).all()
+    for k in range(1, kvp.shape[0]):
+        assert (kvp[k] == vpc[k * CB - 1]).all(), k
+        assert (kvm[k] == vmc[k * CB - 1]).all(), k
+
+
+def jax_fill(args, sw, sched):
+    costs, vpc, vmc = banded.banded_fill(*args, band_words=sw, schedule=sched)
+    return np.asarray(costs), np.asarray(vpc), np.asarray(vmc)
 
 
 def test_ladder_band_jump():

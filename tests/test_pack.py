@@ -1,7 +1,7 @@
 """Native batch pack vs the numpy/device reference: bit parity.
 
 The native pack (`native/astarpa_native.cpp::pack_batch_planes`, consumed
-via `ops.pallas_myers.pack_batch_staggered`) must produce the EXACT
+via `ops.bitpack.pack_batch_staggered`) must produce the EXACT
 (a0, a1, pb0, pb1) planes of the numpy staging path for every geometry —
 the kernels' correctness certificates assume one packed layout.
 """
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from astarpa_tpu import generate, native
-from astarpa_tpu.ops import bitpack, pallas_myers
+from astarpa_tpu.ops import bitpack
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -35,7 +35,7 @@ def _numpy_pack(pairs, lane_multiple, shape_quantum=None):
     for idx, (a, b) in enumerate(pairs):
         acodes[idx, : len(a)] = np.frombuffer(a, np.uint8)
         bcodes[idx, : len(b)] = np.frombuffer(b, np.uint8)
-    return pallas_myers._pack_planes(acodes, bcodes, S), (n_max, S, B)
+    return bitpack._pack_planes(acodes, bcodes, S), (n_max, S, B)
 
 
 @pytest.mark.parametrize("quantum", [None, 128])
@@ -53,7 +53,7 @@ def test_native_pack_bit_parity(quantum):
         pairs, 16, quantum
     )
     a4, pb0pm, pb1pm = native.pack_batch_planes(pairs, B, n_max, S)
-    got = pallas_myers._unpack_planes(a4, pb0pm, pb1pm, n_max=n_max)
+    got = bitpack._unpack_planes(a4, pb0pm, pb1pm, n_max=n_max)
     for ref, g, name in zip(
         (ref_a0, ref_a1, ref_pb0, ref_pb1), got, "a0 a1 pb0 pb1".split()
     ):
@@ -65,7 +65,7 @@ def test_pack_batch_staggered_uses_native_and_matches():
     it takes (native available here)."""
     pairs = [generate.uniform_seeded(200 + 7 * s, 0.1, 40 + s)
              for s in range(5)]
-    (args, B0) = pallas_myers.pack_batch_staggered(pairs, lane_multiple=8)
+    (args, B0) = bitpack.pack_batch_staggered(pairs, lane_multiple=8)
     (ref, _), _geo = _numpy_pack(pairs, 8), None
     for r, g in zip(ref, args[:4]):
         assert np.array_equal(np.asarray(r), np.asarray(g))

@@ -240,15 +240,6 @@ def banded_cost_block(a0, a1, pb0, pb1, n, m, band_words: int,
 banded_cost = jax.jit(banded_cost_block, static_argnames=("band_words", "diag"))
 
 
-def banded_cost_block_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int):
-    """Per-pair-schedule form of :func:`banded_cost_block`."""
-    return banded_cost_block(a0, a1, pb0, pb1, n, m, band_words,
-                             schedule=schedule)
-
-
-banded_cost_pp = jax.jit(banded_cost_block_pp, static_argnames=("band_words",))
-
-
 def banded_fill_block(a0, a1, pb0, pb1, n, m, band_words: int,
                       diag: tuple | None = None, schedule=None):
     """Like :func:`banded_cost_block` but stores the window planes after
@@ -313,7 +304,10 @@ banded_ck = jax.jit(banded_ck_block,
 
 
 #: Per-pair gap schedules only shift at multiples of this column quantum
-#: (the certificate's slack below prices the delay).
+#: (the certificate's slack below prices the delay).  No kernel needs it:
+#: the CUDA kernel and the jnp references read any schedule.  It stays,
+#: with its one word of slack, until the benchmark measures whether
+#: unquantized schedules narrow the certified bands (ROADMAP S1/S4).
 SCHEDULE_Q = 32
 
 

@@ -4,8 +4,9 @@
 Same contract, bit for bit, as the jnp references in
 :mod:`astarpa_tpu.ops.banded`: cost or cost plus checkpoints, under the
 shared bucket schedule or per-pair schedules, at any band height up to
-``MAX_WARPS * 32 * 32`` words.  One team of warps aligns one pair; lanes
-hold ``K`` consecutive window words each (see the source's header).
+``MAX_BAND_WORDS`` (16384 words, 524288 rows: a 500 kbp pair at full
+height).  One team of warps aligns one pair; lanes hold ``K`` consecutive
+window words each (see the source's header).
 
 The library is built with ``nvcc`` for ``sm_90a`` on first use into the
 gitignored ``build/`` directory (:mod:`astarpa_tpu.utils.build`), or ahead
@@ -35,9 +36,14 @@ NVCC_FLAGS = (
 )
 #: Words per lane the kernel is instantiated for.
 WORDS_PER_LANE = (1, 2, 4, 8, 16, 32)
-#: Warps per pair: the kernel's limit, and the team size the plan aims at.
-MAX_WARPS = 32
+#: Warps per pair: the team size the plan aims at, and the most any
+#: K < 32 instance is compiled for (``MAX_THREADS`` in the source).
 TARGET_WARPS = 8
+#: Warps per pair at K = 32, whose instance is compiled for 512 threads:
+#: 128 registers per lane, of which its 3 * 32 state words take 96.
+MAX_WARPS = 16
+#: The widest band the kernel serves.
+MAX_BAND_WORDS = MAX_WARPS * 32 * WORDS_PER_LANE[-1]
 
 _COST_TARGET = "astarpa_banded_cost"
 _CK_TARGET = "astarpa_banded_ck"
@@ -49,23 +55,20 @@ def plan(band_words: int) -> tuple[int, int]:
     """``(K, NW)``: words per lane and warps per pair for a window of
     ``band_words`` words.  The fewest words per lane that keep the team
     within ``TARGET_WARPS`` warps (more lanes per pair, shorter columns),
-    up to ``MAX_WARPS`` warps of 32 words.  The team covers
+    then up to ``MAX_WARPS`` warps of 32 words.  The team covers
     ``NW * 32 * K >= band_words`` slots; slots past the window are padding
     below it."""
     if band_words < 1:
         raise ValueError(f"band_words must be positive, got {band_words}")
+    if band_words > MAX_BAND_WORDS:
+        raise ValueError(
+            f"band of {band_words} words exceeds the CUDA kernel's "
+            f"{MAX_BAND_WORDS}-word limit ({MAX_BAND_WORDS * 32} rows)"
+        )
     for k in WORDS_PER_LANE:
         nw = -(-band_words // (32 * k))
-        if nw <= TARGET_WARPS:
+        if nw <= TARGET_WARPS or k == WORDS_PER_LANE[-1]:
             return k, nw
-    k = WORDS_PER_LANE[-1]
-    nw = -(-band_words // (32 * k))
-    if nw > MAX_WARPS:
-        raise ValueError(
-            f"band of {band_words} words exceeds the kernel's "
-            f"{MAX_WARPS * 32 * k}-word limit"
-        )
-    return k, nw
 
 
 def _nvcc() -> str:

@@ -3,8 +3,9 @@
 Drives the main path the way a user does (``BatchAligner.cost_iter`` /
 ``align_iter``) on the two BASELINE deployments: config #2 (10 kbp pairs,
 e = 5%, 4096 pairs per batch) and config #5 (500 kbp pairs, e = 15%, 128
-pairs per batch), after checking the CUDA banded kernel bit for bit
-against the jnp reference at both band widths.  Every phase must pass;
+pairs per batch), and checks the CUDA banded kernel bit for bit against
+the jnp reference at both deployments' band widths and at wider bands up
+to config #5's full height.  Every phase must pass;
 the last line of stdout is one JSON object naming the device.
 
     python chip_smoke.py            # one card
@@ -207,6 +208,69 @@ def kernel_phase(clock: Clock, card: str, pairs10):
           f"and per-pair schedule); card {card}", flush=True)
 
 
+def wide_band_cases(pairs5):
+    """Bands past 2048 words, as ``(what, args, band, schedule, CB)``: 4096
+    and 8192 words sliding under random per-pair schedules down to the
+    profile's last row, and config #5's own pairs at full height (over 15k
+    words) on a 96-column prefix."""
+    from astarpa_tpu import generate
+    from astarpa_tpu.ops.bitpack import pack_batch_staggered
+
+    rng = np.random.default_rng(17)
+    cases = []
+    for sw, rows, cols in ((4096, 140_000, 384), (8192, 270_000, 256)):
+        pairs = [(generate.random_seq(cols, rng),
+                  generate.random_seq(rows + 37 * s, rng)) for s in range(4)]
+        args, _ = pack_batch_staggered(pairs, lane_multiple=4)
+        n_max, S = args[0].shape[0], args[2].shape[0]
+        sched = np.zeros((n_max, 4), np.uint8)
+        for p in range(4):
+            sched[rng.choice(n_max, S - sw, replace=False), p] = 1
+        cases.append((f"sliding band SW={sw} < S={S}, 4 pairs x {n_max} "
+                      "columns, per-pair schedules", args, sw, sched, 64))
+    prefix = [(a[:96], b) for a, b in pairs5[:2]]
+    args, _ = pack_batch_staggered(prefix, lane_multiple=2)
+    S = args[2].shape[0]
+    check(S > 15_000, f"config #5 profile of {S} words")
+    cases.append((f"full height SW=S={S}, 2 config #5 pairs, 96-column "
+                  "prefix", args, S, None, 40))
+    return cases
+
+
+def wide_band_refs(cases):
+    """The jnp reference of every case on the CPU device."""
+    import jax
+
+    from astarpa_tpu.ops import banded
+
+    cpu = jax.devices("cpu")[0]
+    refs = []
+    with jax.default_device(cpu):
+        for _, args, sw, sched, cb in cases:
+            host = [jax.device_put(np.asarray(a), cpu) for a in args]
+            kw = {} if sched is None else {"schedule": jax.device_put(sched, cpu)}
+            refs.append(jax.tree.map(np.asarray, banded.banded_ck(
+                *host, band_words=sw, col_block=cb, **kw)))
+    return refs
+
+
+def wide_band_phase(card: str, cases, refs) -> None:
+    """CUDA kernel vs the jnp reference past 2048 words, bit for bit."""
+    from astarpa_tpu.ops import cuda_banded
+
+    for (what, args, sw, sched, cb), ref in zip(cases, refs):
+        k, nw = cuda_banded.plan(sw)
+        got, t_k = _timed(lambda: cuda_banded.banded_ck_cuda(
+            *args, band_words=sw, col_block=cb, schedule=sched), 3)
+        _same(got, ref, what)
+        _same(cuda_banded.banded_cost_cuda(*args, band_words=sw,
+                                           schedule=sched), ref[0],
+              f"{what}: cost")
+        print(f"{what}: {k} words per lane x {nw} warps, CB={cb}: CUDA ck "
+              f"{np.median(t_k)*1e3:.3f} ms; costs + checkpoint planes equal "
+              f"the jnp reference on the CPU; card {card}", flush=True)
+
+
 def _check_results(pairs, results, kernels, oracle_idx, want_prefix="cuda-"):
     from astarpa_tpu import oracle
 
@@ -385,14 +449,19 @@ def main(argv=None) -> int:
         pairs5 = generate_pairs(pool, workers, B500, N500, E500, seed=7)
         clock.lap(f"set-up: generate {B10} x {N10} bp (x2) and "
                   f"{B500} x {N500} bp", t)
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         if opts.mesh4:
             mesh_phase(devs, pairs10, pairs5)
         else:
             # The 500 kbp oracle (full-height native Myers, GIL released)
-            # runs beside the device phases.
+            # and the wide bands' jnp references run beside the device
+            # phases.
             futs = [ex.submit(oracle.levenshtein_myers, *pairs5[i])
                     for i in range(2)]
+            t = time.perf_counter()
+            wide = wide_band_cases(pairs5)
+            wide_refs = ex.submit(wide_band_refs, wide)
+            clock.lap("set-up: wide-band cases", t)
             t = time.perf_counter()
             kernel_phase(clock, card, pairs10)
             clock.lap("phase: kernel vs reference", t)
@@ -402,6 +471,12 @@ def main(argv=None) -> int:
             t = time.perf_counter()
             main_path_500k(clock, pairs5, futs)
             clock.lap("phase: main path 500kbp", t)
+            t = time.perf_counter()
+            refs = wide_refs.result()
+            clock.lap("waited for the wide-band references", t)
+            t = time.perf_counter()
+            wide_band_phase(card, wide, refs)
+            clock.lap("phase: wide bands vs reference", t)
     peak = devs[0].memory_stats().get("peak_bytes_in_use", 0)
     print(f"peak device memory: {peak / 2**30:.2f} GiB; total "
           f"{time.perf_counter() - clock.t0:.1f} s", flush=True)

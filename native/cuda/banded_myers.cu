@@ -7,16 +7,27 @@
 // (n_max, B)).
 //
 // Layout: one team of NW warps aligns one pair.  Lane l of warp w holds the
-// K consecutive window words starting at (w*32 + l)*K in registers.  Per
-// column the vertical chain through the window is a carry chain of one bit
-// (hm; hp only feeds the next word's shifted-in bit), so each lane
-// evaluates its K words for both possible incoming hm bits, the teams
-// compose those 1-bit maps with a warp shuffle scan (and shared memory
-// across warps), and then every lane runs its words once with its true
-// carry.  A window slide moves every word up one slot: a shuffle between
-// lanes, shared memory between warps, and a fresh word at slot SW-1.
-// Words at slots >= SW (padding up to NW*32*K) only ever sit below the
-// window and never feed a slot < SW.
+// v planes of the K consecutive window words starting at (w*32 + l)*K in
+// registers.  Per column the vertical chain through the window is a carry
+// chain of one bit (hm; hp only feeds the next word's shifted-in bit), so
+// each lane evaluates its K words for both possible incoming hm bits, the
+// teams compose those 1-bit maps with a warp shuffle scan (and shared
+// memory across warps), and then every lane runs its words once with its
+// true carry.  A window slide moves every v word up one slot: a shuffle
+// between lanes, shared memory between warps, and a fresh word at slot
+// SW-1.  Words at slots >= SW (padding up to R = NW*32*K) only ever sit
+// below the window and never feed a slot < SW.
+//
+// The window's profile words stay put in a shared-memory ring per team:
+// profile row r lives at ring slot r mod R, stored at slot + slot/32 so
+// that lanes reading rows K apart hit different banks.  A slide writes the
+// one entering row over a row that has left the window.
+//
+// Register budget: each lane keeps 3*K words (vp, vm, eq).  Every instance
+// is compiled for the largest team it may run (MAX_THREADS), so a launch
+// never asks for more registers than the SM has; the host plan
+// (cuda_banded.plan) keeps K < 32 within 8 warps and K = 32 within
+// kMaxWarps, which bounds the band at kMaxWarps*32*32 words.
 
 #include <cstdint>
 
@@ -29,9 +40,20 @@ namespace ffi = xla::ffi;
 namespace {
 
 constexpr int W = 32;
-constexpr int kMaxWarps = 32;
+constexpr int kTargetWarps = 8;
+constexpr int kMaxWarps = 16;
 constexpr int kInf = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Threads per block an instance is compiled for: one team of up to
+// kTargetWarps warps (or four one-warp teams) below K = 32; at K = 32 a
+// team of up to kMaxWarps warps, which leaves 128 registers per lane.
+#define MAX_THREADS(K) ((K) < 32 ? 32 * kTargetWarps : 32 * kMaxWarps)
+
+// Words of one profile plane's ring of R rows (R a multiple of 32).
+__host__ __device__ constexpr int ring_words(int R) { return R + R / 32; }
+
+__device__ __forceinline__ int ring_at(int slot) { return slot + (slot >> 5); }
 
 struct Params {
   const uint32_t* a0;
@@ -74,40 +96,59 @@ __device__ __forceinline__ uint32_t hp_out(uint32_t eq, uint32_t vp,
 }
 
 template <int K>
-__global__ void banded_kernel(Params p) {
-  __shared__ uint32_t sx[kMaxWarps][4];  // word 0 of each warp, for slides
+__global__ void __launch_bounds__(MAX_THREADS(K)) banded_kernel(Params p) {
+  extern __shared__ uint32_t rings[];    // per team: pb0 ring, pb1 ring
+  __shared__ uint32_t sx[kMaxWarps][2];  // vp/vm word 0 of each warp
   __shared__ uint32_t smap[2][kMaxWarps];
   __shared__ int32_t sred[kMaxWarps];
 
   const int team_threads = 32 * p.NW;
   const int team = threadIdx.x / team_threads;
-  const int warp = (threadIdx.x % team_threads) / 32;
+  const int tid = threadIdx.x % team_threads;
+  const int warp = tid / 32;
   const int lane = threadIdx.x & 31;
   const int pair = blockIdx.x * p.PPB + team;
   if (pair >= p.B) return;  // whole team; PPB == 1 whenever NW > 1
-  const bool owner = warp == 0 && lane == 0;
+  const bool owner = tid == 0;
   const bool multi = p.NW > 1;
   const int B = p.B, S = p.S, SW = p.SW;
-  const int base = (warp * 32 + lane) * K;
+  const int R = team_threads * K;
+  const int base = tid * K;
   const int n = p.n[pair];
   const int m = p.m[pair];
+  uint32_t* ring0 = rings + (size_t)team * 2 * ring_words(R);
+  uint32_t* ring1 = ring0 + ring_words(R);
+  // NW > 1 means one team per block.
+  auto team_sync = [multi] {
+    if (multi)
+      __syncthreads();
+    else
+      __syncwarp();
+  };
 
-  uint32_t vp[K], vm[K], w0[K], w1[K];
+  for (int j = tid; j < R; j += team_threads) {
+    size_t o = (size_t)min(j, S - 1) * B + pair;
+    ring0[ring_at(j)] = p.pb0[o];
+    ring1[ring_at(j)] = p.pb1[o];
+  }
+  uint32_t vp[K], vm[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    int j = min(base + s, S - 1);
     vp[s] = kFull;
     vm[s] = 0;
-    w0[s] = p.pb0[(size_t)j * B + pair];
-    w1[s] = p.pb1[(size_t)j * B + pair];
   }
   int lo = 0;
+  int top = 0;      // ring slot of row lo
   int top_val = 0;  // meaningful in the owner lane
   // Pairs with n == 0 (and pairs past the last column) keep cost m.
   if (owner) p.cost[pair] = m;
-  // The word entering at the next slide: profile row lo + SW (clamped).
-  uint32_t ent0 = p.pb0[(size_t)min(lo + SW, S - 1) * B + pair];
-  uint32_t ent1 = p.pb1[(size_t)min(lo + SW, S - 1) * B + pair];
+  // The row entering at the next slide: profile row lo + SW (clamped).
+  uint32_t ent0 = 0, ent1 = 0;
+  if (owner) {
+    ent0 = p.pb0[(size_t)min(lo + SW, S - 1) * B + pair];
+    ent1 = p.pb1[(size_t)min(lo + SW, S - 1) * B + pair];
+  }
+  team_sync();
 
   // Per-column inputs arrive 32 columns at a time, lane t holding column
   // i0 + t; the next chunk is loaded one chunk ahead.
@@ -158,57 +199,59 @@ __global__ void banded_kernel(Params p) {
       if (owner) top_val += __popc(vp[0]) - __popc(vm[0]);
       uint32_t nb_vp = __shfl_down_sync(kFull, vp[0], 1);
       uint32_t nb_vm = __shfl_down_sync(kFull, vm[0], 1);
-      uint32_t nb_w0 = __shfl_down_sync(kFull, w0[0], 1);
-      uint32_t nb_w1 = __shfl_down_sync(kFull, w1[0], 1);
-      if (multi) {
-        if (lane == 0) {
-          sx[warp][0] = vp[0];
-          sx[warp][1] = vm[0];
-          sx[warp][2] = w0[0];
-          sx[warp][3] = w1[0];
-        }
-        __syncthreads();
-        if (lane == 31 && warp + 1 < p.NW) {
-          nb_vp = sx[warp + 1][0];
-          nb_vm = sx[warp + 1][1];
-          nb_w0 = sx[warp + 1][2];
-          nb_w1 = sx[warp + 1][3];
-        }
-        __syncthreads();
+      if (multi && lane == 0) {
+        sx[warp][0] = vp[0];
+        sx[warp][1] = vm[0];
       }
+      // Also: every lane is done reading the ring for column i - 1.
+      team_sync();
+      if (multi && lane == 31 && warp + 1 < p.NW) {
+        nb_vp = sx[warp + 1][0];
+        nb_vm = sx[warp + 1][1];
+      }
+      // Row lo + SW enters at window slot SW - 1.  Its ring slot held row
+      // lo + SW - R <= lo, which is out of the window after this slide.
+      if (owner) {
+        int r = top + SW;
+        if (r >= R) r -= R;
+        ring0[ring_at(r)] = ent0;
+        ring1[ring_at(r)] = ent1;
+      }
+      team_sync();
 #pragma unroll
       for (int s = 0; s + 1 < K; ++s) {
         vp[s] = vp[s + 1];
         vm[s] = vm[s + 1];
-        w0[s] = w0[s + 1];
-        w1[s] = w1[s + 1];
       }
       vp[K - 1] = nb_vp;
       vm[K - 1] = nb_vm;
-      w0[K - 1] = nb_w0;
-      w1[K - 1] = nb_w1;
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         if (base + s >= SW - 1) {
           vp[s] = kFull;
           vm[s] = 0;
-          w0[s] = ent0;
-          w1[s] = ent1;
         }
       }
       ++lo;
-      ent0 = p.pb0[(size_t)min(lo + SW, S - 1) * B + pair];
-      ent1 = p.pb1[(size_t)min(lo + SW, S - 1) * B + pair];
+      if (++top == R) top = 0;
+      if (owner) {
+        ent0 = p.pb0[(size_t)min(lo + SW, S - 1) * B + pair];
+        ent1 = p.pb1[(size_t)min(lo + SW, S - 1) * B + pair];
+      }
     }
 
     if (i >= n) continue;  // finished pair: the window only slides
 
     // --- one banded column.  Pass 1: this lane's carry map.
+    int slot0 = top + base;  // ring slot of this lane's first row
+    if (slot0 >= R) slot0 -= R;
     uint32_t eq[K];
     uint32_t h0 = 0, h1 = 1, hp0 = 0, hp1 = 0;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      eq[s] = (ca0 ^ w0[s]) & (ca1 ^ w1[s]);
+      int r = slot0 + s;
+      if (r >= R) r -= R;
+      eq[s] = (ca0 ^ ring0[ring_at(r)]) & (ca1 ^ ring1[ring_at(r)]);
       if (s == K - 1) {
         hp0 = hp_out(eq[s], vp[s], vm[s], h0);
         hp1 = hp_out(eq[s], vp[s], vm[s], h1);
@@ -288,11 +331,25 @@ __global__ void banded_kernel(Params p) {
 }
 
 template <int K>
-cudaError_t launch(cudaStream_t stream, const Params& p) {
+ffi::Error launch(cudaStream_t stream, const Params& p) {
   const int threads = 32 * p.NW * p.PPB;
+  if (threads > MAX_THREADS(K))
+    return ffi::Error::InvalidArgument(
+        "banded_myers: team too large for its words per lane");
   const int blocks = (p.B + p.PPB - 1) / p.PPB;
-  banded_kernel<K><<<blocks, threads, 0, stream>>>(p);
-  return cudaGetLastError();
+  const size_t smem =
+      sizeof(uint32_t) * 2 * p.PPB * (size_t)ring_words(32 * p.NW * K);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(banded_kernel<K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess) {
+    banded_kernel<K><<<blocks, threads, smem, stream>>>(p);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return ffi::Error::Internal(cudaGetErrorString(err));
+  return ffi::Error::Success();
 }
 
 ffi::Error run(cudaStream_t stream, ffi::Buffer<ffi::U32> a0,
@@ -338,20 +395,16 @@ ffi::Error run(cudaStream_t stream, ffi::Buffer<ffi::U32> a0,
   p.ckvp = ckvp;
   p.ckvm = ckvm;
   p.cktv = cktv;
-  cudaError_t err;
   switch (k) {
-    case 1: err = launch<1>(stream, p); break;
-    case 2: err = launch<2>(stream, p); break;
-    case 4: err = launch<4>(stream, p); break;
-    case 8: err = launch<8>(stream, p); break;
-    case 16: err = launch<16>(stream, p); break;
-    case 32: err = launch<32>(stream, p); break;
+    case 1: return launch<1>(stream, p);
+    case 2: return launch<2>(stream, p);
+    case 4: return launch<4>(stream, p);
+    case 8: return launch<8>(stream, p);
+    case 16: return launch<16>(stream, p);
+    case 32: return launch<32>(stream, p);
     default:
       return ffi::Error::InvalidArgument("banded_myers: bad words per lane");
   }
-  if (err != cudaSuccess)
-    return ffi::Error::Internal(cudaGetErrorString(err));
-  return ffi::Error::Success();
 }
 
 ffi::Error CostImpl(cudaStream_t stream, ffi::Buffer<ffi::U32> a0,

@@ -519,7 +519,8 @@ def test_perpair_schedule_matches_shared():
             banded.shift_at_array(n_max, S, sw)[:, None], (n_max, B)
         ).astype(np.uint8)
         pp = np.asarray(
-            banded.banded_cost_pp(a0, a1, pb0, pb1, n, m, sched, band_words=sw)
+            banded.banded_cost(a0, a1, pb0, pb1, n, m, band_words=sw,
+                               schedule=sched)
         )
         assert (shared == pp).all(), sw
 
@@ -545,7 +546,8 @@ def test_pair_gap_schedule_certified_exact():
         full = np.zeros((n_max, a0.shape[1]), np.uint8)
         full[:, :B0] = sched
         got = np.asarray(
-            banded.banded_cost_pp(a0, a1, pb0, pb1, n, m, full, band_words=sw)
+            banded.banded_cost(a0, a1, pb0, pb1, n, m, band_words=sw,
+                               schedule=full)
         )[:B0]
         ok = got <= thr
         for g, e, o in zip(got, expected, ok):
@@ -572,7 +574,8 @@ def test_pallas_perpair_parity_interpret():
             np.asarray(n), np.asarray(m), sw, n_max, S
         )
         ref = np.asarray(
-            banded.banded_cost_pp(a0, a1, pb0, pb1, n, m, sched, band_words=sw)
+            banded.banded_cost(a0, a1, pb0, pb1, n, m, band_words=sw,
+                               schedule=sched)
         )
         got = np.asarray(banded.banded_ck(*args, band_words=sw, col_block=96,
                                           schedule=sched)[0])
@@ -618,7 +621,7 @@ def test_domain_ladder_unservable_band_falls_back(monkeypatch):
     from astarpa_tpu.ops import cuda_banded
 
     with pytest.raises(ValueError):
-        cuda_banded.plan(cuda_banded.MAX_WARPS * 32 * 32 + 1)
+        cuda_banded.plan(cuda_banded.MAX_BAND_WORDS + 1)
     orig = BatchAligner._dispatch
 
     def boom(self, stats, args, sw, diag=None, schedule=None, CB=None):

@@ -16,20 +16,27 @@ from astarpa_tpu.ops.bitpack import pack_batch_staggered
 
 
 @pytest.mark.parametrize("sw", [1, 2, 31, 32, 33, 72, 256, 257, 512, 2048,
-                                4096, 15873, 32768])
+                                4096, 8192, 8193, 15626, 15873, 16384])
 def test_plan_covers_band(sw):
     """The team covers the band with the fewest words per lane that keep
-    it within TARGET_WARPS warps, and wastes less than one warp's slots."""
+    it within TARGET_WARPS warps, and wastes less than one warp's slots;
+    only K = 32 goes past TARGET_WARPS, up to MAX_WARPS (the register
+    budget its instance is compiled for)."""
     k, nw = cuda_banded.plan(sw)
     assert k in cuda_banded.WORDS_PER_LANE
-    assert 1 <= nw <= cuda_banded.MAX_WARPS
+    limit = cuda_banded.TARGET_WARPS if k < 32 else cuda_banded.MAX_WARPS
+    assert 1 <= nw <= limit
     assert nw * 32 * k >= sw > (nw - 1) * 32 * k
     smaller = [x for x in cuda_banded.WORDS_PER_LANE if x < k]
     if smaller:
         assert -(-sw // (32 * smaller[-1])) > cuda_banded.TARGET_WARPS
+    # The team's two profile rings (one word per row plus one per 32
+    # rows) fit in an H100 block's 227 KiB of shared memory.
+    rows = nw * 32 * k
+    assert 2 * 4 * (rows + rows // 32) <= 227 * 1024
 
 
-@pytest.mark.parametrize("sw", [0, cuda_banded.MAX_WARPS * 32 * 32 + 1])
+@pytest.mark.parametrize("sw", [0, cuda_banded.MAX_BAND_WORDS + 1])
 def test_plan_rejects(sw):
     with pytest.raises(ValueError):
         cuda_banded.plan(sw)
@@ -130,3 +137,46 @@ def test_cuda_matches_jnp_sliding_multiwarp(gpu, sw):
     ).astype(np.uint8)
     _equal(cuda_banded.banded_ck_cuda(*args, band_words=sw, col_block=128,
                                       schedule=shared), ref)
+
+
+def _prefix_pairs(rows: int, cols: int, count: int, seed: int):
+    """``count`` pairs of a ``cols``-char ``a`` against a ``rows``-char
+    ``b``: a column prefix of a pair with a ``rows``-row profile."""
+    rng = np.random.default_rng(seed)
+    return [(generate.random_seq(cols, rng), generate.random_seq(rows + 37 * s, rng))
+            for s in range(count)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sw,rows,cols", [(4096, 140_000, 384),
+                                          (8192, 270_000, 256)])
+def test_cuda_matches_jnp_wide_band(gpu, sw, rows, cols):
+    """16 and 32 words per lane in an 8-warp team, sliding under random
+    per-pair schedules all the way down to the profile's last row."""
+    pairs = _prefix_pairs(rows, cols, 4, seed=sw)
+    args, _ = pack_batch_staggered(pairs, lane_multiple=4)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    assert S > sw and cuda_banded.plan(sw)[1] == 8
+    rng = np.random.default_rng(sw + 1)
+    sched = np.zeros((n_max, 4), np.uint8)
+    for p in range(4):
+        sched[rng.choice(n_max, S - sw, replace=False), p] = 1
+    ref = _on_cpu(lambda *x, **k: banded.banded_ck(*x[:6], schedule=x[6], **k),
+                  *args, sched, band_words=sw, col_block=64)
+    _equal(cuda_banded.banded_ck_cuda(*args, band_words=sw, col_block=64,
+                                      schedule=sched), ref)
+    _equal(cuda_banded.banded_cost_cuda(*args, band_words=sw, schedule=sched),
+           ref[0])
+
+
+@pytest.mark.gpu
+def test_cuda_matches_jnp_full_height_500kbp(gpu):
+    """A column prefix of 500 kbp pairs at full height: over 15k words,
+    a 16-warp team of 32 words per lane."""
+    pairs = _prefix_pairs(500_000, 96, 2, seed=3)
+    args, _ = pack_batch_staggered(pairs, lane_multiple=2)
+    S = args[2].shape[0]
+    assert S > 15_000 and cuda_banded.plan(S) == (32, 16)
+    ref = _on_cpu(banded.banded_ck, *args, band_words=S, col_block=40)
+    _equal(cuda_banded.banded_ck_cuda(*args, band_words=S, col_block=40), ref)
+    _equal(cuda_banded.banded_cost_cuda(*args, band_words=S), ref[0])

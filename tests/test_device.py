@@ -47,6 +47,24 @@ def test_native_library_is_keyed_on_this_host():
     assert build.host_cpu_id()
 
 
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_native_failure_raises_off_the_cpu(monkeypatch, backend):
+    """A native build or load failure is a quiet False only on the CPU
+    backend; on a device backend it raises instead of degrading."""
+    from astarpa_tpu import native
+
+    def broken():
+        raise OSError("no compiler")
+
+    monkeypatch.setattr(native, "load", broken)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if backend == "cpu":
+        assert native.available() is False
+    else:
+        with pytest.raises(RuntimeError, match="gpu backend: no compiler"):
+            native.available()
+
+
 def test_compile_cache_env_set(monkeypatch, tmp_path):
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     before = jax.config.jax_compilation_cache_dir
